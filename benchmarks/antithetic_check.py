@@ -28,16 +28,15 @@ M = int(sys.argv[3]) if len(sys.argv) > 3 else 100
 if MODE == "analytic":
     jax.config.update("jax_platforms", "cpu")
 else:
-    jax.config.update("jax_compilation_cache_dir",
-                      str(Path(__file__).resolve().parents[1] / ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+    from fast_monte_carlo.utils.compile_cache import enable_compile_cache  # noqa: E402
+    enable_compile_cache()
 
 import numpy as np
 
-from fast_monte_carlo_tpu.api import MatchupRunner
-from fast_monte_carlo_tpu.config import SimConfig
-from fast_monte_carlo_tpu.data import build_team_context_from_sp_flex, load_sp_flex
-from fast_monte_carlo_tpu.models.heads import load_heads
+from fast_monte_carlo.api import MatchupRunner
+from fast_monte_carlo.config import SimConfig
+from fast_monte_carlo.data import build_team_context_from_sp_flex, load_sp_flex
+from fast_monte_carlo.models.heads import load_heads
 
 sp = load_sp_flex("/root/reference/PregameSPPlus2025_1.csv")
 A = build_team_context_from_sp_flex("Kansas State", 2025, 1, sp)

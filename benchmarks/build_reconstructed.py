@@ -1,6 +1,6 @@
 """Build the committed reconstructed-mode artifact overlay (VERDICT r4 #6).
 
-Produces `fast_monte_carlo_tpu/artifacts/reconstructed/`:
+Produces `fast_monte_carlo/artifacts/reconstructed/`:
 
 * `pass_stage2_sklearn.joblib` (+ classes csv / eval dump) — the
   snapshot-missing stage-2 booster, reconstructed by
@@ -29,13 +29,13 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 import numpy as np
 
-from fast_monte_carlo_tpu.data import build_team_context_from_sp_flex, load_sp_flex
-from fast_monte_carlo_tpu.models import analytic
-from fast_monte_carlo_tpu.models.heads import load_heads
-from fast_monte_carlo_tpu.config import SimConfig
-from fast_monte_carlo_tpu.train import pipeline as P
+from fast_monte_carlo.data import build_team_context_from_sp_flex, load_sp_flex
+from fast_monte_carlo.models import analytic
+from fast_monte_carlo.models.heads import load_heads
+from fast_monte_carlo.config import SimConfig
+from fast_monte_carlo.train import pipeline as P
 
-OUT = REPO / "fast_monte_carlo_tpu" / "artifacts" / "reconstructed"
+OUT = REPO / "fast_monte_carlo" / "artifacts" / "reconstructed"
 OUT.mkdir(parents=True, exist_ok=True)
 
 sp = load_sp_flex("/root/reference/PregameSPPlus2025_1.csv")

@@ -5,15 +5,15 @@ integers 2..13 — chosen before running, no selection.  524,288 games per
 seed (SE 0.07pp) so the ensemble spread, not sampling, dominates each
 point."""
 import sys, time, dataclasses
-sys.path.insert(0, '/root/repo')
+sys.path.insert(0, str(__import__('pathlib').Path(__file__).resolve().parents[1]))
 import jax
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+from fast_monte_carlo.utils.compile_cache import enable_compile_cache  # noqa: E402
+enable_compile_cache()
 import numpy as np
-from fast_monte_carlo_tpu.api import MatchupRunner
-from fast_monte_carlo_tpu.config import SimConfig
-from fast_monte_carlo_tpu.data import build_team_context_from_sp_flex, load_sp_flex
-from fast_monte_carlo_tpu.models.heads import load_heads
+from fast_monte_carlo.api import MatchupRunner
+from fast_monte_carlo.config import SimConfig
+from fast_monte_carlo.data import build_team_context_from_sp_flex, load_sp_flex
+from fast_monte_carlo.models.heads import load_heads
 
 sp = load_sp_flex("/root/reference/PregameSPPlus2025_1.csv")
 A = build_team_context_from_sp_flex("Kansas State", 2025, 1, sp)

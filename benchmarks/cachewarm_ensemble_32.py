@@ -8,15 +8,15 @@ consecutive integers 15..30 — chosen before running, no selection
 524,288 games per seed (SE 0.07pp) as before.
 """
 import sys, time, dataclasses
-sys.path.insert(0, '/root/repo')
+sys.path.insert(0, str(__import__('pathlib').Path(__file__).resolve().parents[1]))
 import jax
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+from fast_monte_carlo.utils.compile_cache import enable_compile_cache  # noqa: E402
+enable_compile_cache()
 import numpy as np
-from fast_monte_carlo_tpu.api import MatchupRunner
-from fast_monte_carlo_tpu.config import SimConfig
-from fast_monte_carlo_tpu.data import build_team_context_from_sp_flex, load_sp_flex
-from fast_monte_carlo_tpu.models.heads import load_heads
+from fast_monte_carlo.api import MatchupRunner
+from fast_monte_carlo.config import SimConfig
+from fast_monte_carlo.data import build_team_context_from_sp_flex, load_sp_flex
+from fast_monte_carlo.models.heads import load_heads
 
 # the 16 round-3 measurements (cachewarm_ensemble_16.log), reused verbatim
 R3 = {123: 0.61741, 7: 0.60185, 42: 0.61903, 1001: 0.60879,

@@ -7,15 +7,15 @@ the seed-ensemble SE reaches ~0.11pp against the 319k referee's 0.09pp
 — the two uncertainty sources finally comparable.
 """
 import sys, time, dataclasses
-sys.path.insert(0, '/root/repo')
+sys.path.insert(0, str(__import__('pathlib').Path(__file__).resolve().parents[1]))
 import jax
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+from fast_monte_carlo.utils.compile_cache import enable_compile_cache  # noqa: E402
+enable_compile_cache()
 import numpy as np
-from fast_monte_carlo_tpu.api import MatchupRunner
-from fast_monte_carlo_tpu.config import SimConfig
-from fast_monte_carlo_tpu.data import build_team_context_from_sp_flex, load_sp_flex
-from fast_monte_carlo_tpu.models.heads import load_heads
+from fast_monte_carlo.api import MatchupRunner
+from fast_monte_carlo.config import SimConfig
+from fast_monte_carlo.data import build_team_context_from_sp_flex, load_sp_flex
+from fast_monte_carlo.models.heads import load_heads
 
 # the 47 recorded round-3/4/5 measurements (cachewarm_ensemble_*.log)
 R5 = {123: 0.61741, 7: 0.60185, 42: 0.61903, 1001: 0.60879,
@@ -30,7 +30,7 @@ R5 = {123: 0.61741, 7: 0.60185, 42: 0.61903, 1001: 0.60879,
 # round-5 seeds 31..46 from cachewarm_ensemble_48.log
 import re
 from pathlib import Path
-log48 = Path('/root/repo/benchmarks/cachewarm_ensemble_48.log').read_text()
+log48 = (Path(__file__).resolve().parent / 'cachewarm_ensemble_48.log').read_text()
 for m in re.finditer(r"seed=(\d+): win_A=(0\.\d+)", log48):
     R5[int(m.group(1))] = float(m.group(2))
 assert len(R5) == 47, len(R5)

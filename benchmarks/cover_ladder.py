@@ -25,15 +25,15 @@ sys.path.insert(0, str(REPO))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", str(REPO / ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+from fast_monte_carlo.utils.compile_cache import enable_compile_cache  # noqa: E402
+enable_compile_cache()
 
 import numpy as np
 
-from fast_monte_carlo_tpu.api import MatchupRunner
-from fast_monte_carlo_tpu.config import SimConfig
-from fast_monte_carlo_tpu.data import build_team_context_from_sp_flex, load_sp_flex
-from fast_monte_carlo_tpu.models.heads import load_heads
+from fast_monte_carlo.api import MatchupRunner
+from fast_monte_carlo.config import SimConfig
+from fast_monte_carlo.data import build_team_context_from_sp_flex, load_sp_flex
+from fast_monte_carlo.models.heads import load_heads
 
 pos = [a for a in sys.argv[1:] if not a.startswith("--")]
 n_oracle = int(pos[0]) if pos else 8000
@@ -52,7 +52,7 @@ if cache.exists():
     o_margin = np.load(cache)["margin"]
     print(f"oracle margins: loaded {len(o_margin)} from {cache.name}", flush=True)
 else:
-    from fast_monte_carlo_tpu.oracle import OracleMatchup
+    from fast_monte_carlo.oracle import OracleMatchup
     m = OracleMatchup(A, B, heads, cfg0)
     rng = np.random.default_rng(456 if cold else 123)
     t0 = time.perf_counter()

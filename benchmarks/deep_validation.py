@@ -26,20 +26,20 @@ if platform == "cpu":
 else:
     # engine on the real chip (the oracle side is pure numpy either way);
     # rbg streams are backend-specific, so validating the bench default
-    # (--rng rbg) belongs on the TPU
-    jax.config.update("jax_compilation_cache_dir", str(REPO / ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+    # (--rng rbg) belongs on the GPU
+    from fast_monte_carlo.utils.compile_cache import enable_compile_cache  # noqa: E402
+    enable_compile_cache()
 
 import jax.numpy as jnp
 import numpy as np
 from scipy import stats as sps
 
-from fast_monte_carlo_tpu.api import MatchupRunner
-from fast_monte_carlo_tpu.config import SimConfig
-from fast_monte_carlo_tpu.data import build_team_context_from_sp_flex, load_sp_flex
-from fast_monte_carlo_tpu.models.heads import load_heads
-from fast_monte_carlo_tpu.oracle import OracleMatchup
-from fast_monte_carlo_tpu.stats import TS
+from fast_monte_carlo.api import MatchupRunner
+from fast_monte_carlo.config import SimConfig
+from fast_monte_carlo.data import build_team_context_from_sp_flex, load_sp_flex
+from fast_monte_carlo.models.heads import load_heads
+from fast_monte_carlo.oracle import OracleMatchup
+from fast_monte_carlo.stats import TS
 
 n_oracle = int(sys.argv[1]) if len(sys.argv) > 1 else 2000
 n_engine_pairs = int(sys.argv[2]) if len(sys.argv) > 2 else 32768

@@ -11,12 +11,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import jax
 import numpy as np
 
-from fast_monte_carlo_tpu.api import MatchupRunner
-from fast_monte_carlo_tpu.config import SimConfig
-from fast_monte_carlo_tpu.data import build_team_context_from_sp_flex, load_sp_flex
-from fast_monte_carlo_tpu.edge import market_odds_from_summary
-from fast_monte_carlo_tpu.models.heads import load_heads
-from fast_monte_carlo_tpu.parallel import cover_probs, summarize_scores, total_probs
+from fast_monte_carlo.api import MatchupRunner
+from fast_monte_carlo.config import SimConfig
+from fast_monte_carlo.data import build_team_context_from_sp_flex, load_sp_flex
+from fast_monte_carlo.edge import market_odds_from_summary
+from fast_monte_carlo.models.heads import load_heads
+from fast_monte_carlo.parallel import cover_probs, summarize_scores, total_probs
 
 n_pairs = int(sys.argv[1]) if len(sys.argv) > 1 else 262144
 

@@ -31,7 +31,7 @@ PRE-REGISTERED CHECKS:
   C4  budget closes: (L_e-L_o) + Q_nano(full ensemble) + F_nano - C
       within 0.1pp of the observed +0.442pp.
 
-Usage: python benchmarks/error_budget.py   (TPU; ~10-20 min, mostly
+Usage: python benchmarks/error_budget.py   (accelerator; mostly
 table builds — warm-event recordings and built tables disk-cache)
 
 OUTCOME (run 2026-08-20, VALIDATION.md "error budget" section): C1 PASS
@@ -54,15 +54,14 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import jax
 
-jax.config.update("jax_compilation_cache_dir",
-                  str(Path(__file__).resolve().parents[1] / ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+from fast_monte_carlo.utils.compile_cache import enable_compile_cache  # noqa: E402
+enable_compile_cache()
 import numpy as np
 
-from fast_monte_carlo_tpu.api import MatchupRunner
-from fast_monte_carlo_tpu.config import SimConfig
-from fast_monte_carlo_tpu.data import build_team_context_from_sp_flex, load_sp_flex
-from fast_monte_carlo_tpu.models.heads import load_heads
+from fast_monte_carlo.api import MatchupRunner
+from fast_monte_carlo.config import SimConfig
+from fast_monte_carlo.data import build_team_context_from_sp_flex, load_sp_flex
+from fast_monte_carlo.models.heads import load_heads
 
 PAIRS = 262144          # 524,288 games: SE(win) ~ 0.07pp
 SIM_SEED = 21

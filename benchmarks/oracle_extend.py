@@ -16,7 +16,7 @@ Two referee protocols:
   length; seed-456 stream, outputs oracle_margins_cold_{n}.npz.  This is
   the referee the high-power north-star test prefers.
 
-The oracle is ~5-10 games/s on one host core.  Progress checkpoints
+The oracle is pure Python on one host core, so runs are long.  Progress checkpoints
 (scores + bit-generator state) land in a wip pickle every CHUNK games and
 the run resumes from there if interrupted; the wip is kept on completion
 so a later larger target continues the stream.  Milestone npz caches are
@@ -41,10 +41,10 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 
-from fast_monte_carlo_tpu.config import SimConfig
-from fast_monte_carlo_tpu.data import build_team_context_from_sp_flex, load_sp_flex
-from fast_monte_carlo_tpu.models.heads import load_heads
-from fast_monte_carlo_tpu.oracle import OracleMatchup
+from fast_monte_carlo.config import SimConfig
+from fast_monte_carlo.data import build_team_context_from_sp_flex, load_sp_flex
+from fast_monte_carlo.models.heads import load_heads
+from fast_monte_carlo.oracle import OracleMatchup
 
 CHUNK = 500
 

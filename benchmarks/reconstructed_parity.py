@@ -19,15 +19,15 @@ sys.path.insert(0, str(REPO))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", str(REPO / ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+from fast_monte_carlo.utils.compile_cache import enable_compile_cache  # noqa: E402
+enable_compile_cache()
 
 import numpy as np
 
-from fast_monte_carlo_tpu.api import MatchupRunner
-from fast_monte_carlo_tpu.config import reconstructed_config
-from fast_monte_carlo_tpu.data import build_team_context_from_sp_flex, load_sp_flex
-from fast_monte_carlo_tpu.models.heads import load_reconstructed_heads
+from fast_monte_carlo.api import MatchupRunner
+from fast_monte_carlo.config import reconstructed_config
+from fast_monte_carlo.data import build_team_context_from_sp_flex, load_sp_flex
+from fast_monte_carlo.models.heads import load_reconstructed_heads
 
 n_oracle = int(sys.argv[1]) if len(sys.argv) > 1 else 8000
 n_pairs = int(sys.argv[2]) if len(sys.argv) > 2 else 131072
@@ -45,7 +45,7 @@ if cache.exists():
     o_sc = np.load(cache)["score"]
     print(f"oracle scores: loaded {len(o_sc)} from {cache.name}", flush=True)
 else:
-    from fast_monte_carlo_tpu.oracle import OracleMatchup
+    from fast_monte_carlo.oracle import OracleMatchup
     m = OracleMatchup(A, B, heads, cfg)
     rng = np.random.default_rng(321)
     t0 = time.perf_counter()

@@ -14,11 +14,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import numpy as np
 import pandas as pd
 
-from fast_monte_carlo_tpu.api import MatchupRunner
-from fast_monte_carlo_tpu.config import SimConfig
-from fast_monte_carlo_tpu.data import build_team_context_from_sp_flex, load_sp_flex
-from fast_monte_carlo_tpu.edge import prob_to_american
-from fast_monte_carlo_tpu.models.heads import load_heads
+from fast_monte_carlo.api import MatchupRunner
+from fast_monte_carlo.config import SimConfig
+from fast_monte_carlo.data import build_team_context_from_sp_flex, load_sp_flex
+from fast_monte_carlo.edge import prob_to_american
+from fast_monte_carlo.models.heads import load_heads
 
 n_pairs = int(sys.argv[1]) if len(sys.argv) > 1 else 50000
 n_matchups = int(sys.argv[2]) if len(sys.argv) > 2 else 20

@@ -7,7 +7,7 @@ from the client side plus the service's own /health latency rings
 (VERDICT r3 #7).  Device work is serialized behind the service lock, so
 concurrency measures queueing behavior, not parallel speedup.
 
-Run on the TPU:  python benchmarks/serve_latency.py [--clients 4]
+Run on the GPU:  python benchmarks/serve_latency.py [--clients 4]
                  [--requests 25] [--deadline 30]
 """
 import argparse
@@ -63,7 +63,7 @@ def main():
     ap.add_argument("--sp", default="/root/reference/PregameSPPlus2025_1.csv")
     args = ap.parse_args()
 
-    from fast_monte_carlo_tpu.serve import ServeConfig, SimService, make_server
+    from fast_monte_carlo.serve import ServeConfig, SimService, make_server
 
     cfg = ServeConfig(sp_path=args.sp, deadline_s=args.deadline)
     service = SimService(cfg)

@@ -20,16 +20,16 @@ sys.path.insert(0, str(REPO))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", str(REPO / ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+from fast_monte_carlo.utils.compile_cache import enable_compile_cache  # noqa: E402
+enable_compile_cache()
 
-from fast_monte_carlo_tpu.api import SlateRunner
-from fast_monte_carlo_tpu.config import SimConfig
-from fast_monte_carlo_tpu.data import (
+from fast_monte_carlo.api import SlateRunner
+from fast_monte_carlo.config import SimConfig
+from fast_monte_carlo.data import (
     build_team_context_from_sp_flex, load_sp_flex,
 )
-from fast_monte_carlo_tpu.models.heads import load_heads
-from fast_monte_carlo_tpu.parallel import game_mesh
+from fast_monte_carlo.models.heads import load_heads
+from fast_monte_carlo.parallel import game_mesh
 
 N_MATCHUPS = int(sys.argv[1]) if len(sys.argv) > 1 else 60
 PAIRS = int(sys.argv[2]) if len(sys.argv) > 2 else 50_000

@@ -1,4 +1,4 @@
-"""Ablate the play step on the real TPU to see where time goes.
+"""Ablate the play step on the device to see where time goes.
 
 Variants (all B games, early-exit on, transfer-verified):
   full-fused     the production fused-table path
@@ -13,10 +13,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import jax
 import numpy as np
 
-from fast_monte_carlo_tpu.api import MatchupRunner
-from fast_monte_carlo_tpu.config import SimConfig
-from fast_monte_carlo_tpu.data import build_team_context_from_sp_flex, load_sp_flex
-from fast_monte_carlo_tpu.models.heads import load_heads
+from fast_monte_carlo.api import MatchupRunner
+from fast_monte_carlo.config import SimConfig
+from fast_monte_carlo.data import build_team_context_from_sp_flex, load_sp_flex
+from fast_monte_carlo.models.heads import load_heads
 
 n_pairs = int(sys.argv[1]) if len(sys.argv) > 1 else 131072
 cfg = SimConfig()

@@ -1,4 +1,4 @@
-"""Surgical intra-step ablation of the play step on the real TPU.
+"""Surgical intra-step ablation of the play step on the device.
 
 A local copy of a REPRESENTATIVE play step with toggles, so each cost
 center (RNG, pack gathers, feature stack, heads, state machine, stats,
@@ -17,9 +17,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir",
-                  str(Path(__file__).resolve().parents[1] / ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+from fast_monte_carlo.utils.compile_cache import enable_compile_cache  # noqa: E402
+enable_compile_cache()
 
 B = int(sys.argv[1]) if len(sys.argv) > 1 else 131072
 STEPS = int(sys.argv[2]) if len(sys.argv) > 2 else 360
@@ -44,8 +43,8 @@ def run(name, scan_fn, *args):
     return best
 
 
-from fast_monte_carlo_tpu.config import SimConfig
-from fast_monte_carlo_tpu.models import analytic
+from fast_monte_carlo.config import SimConfig
+from fast_monte_carlo.models import analytic
 
 cfg = SimConfig()
 

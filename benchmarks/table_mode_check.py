@@ -1,6 +1,6 @@
 """Table-mode vs exact-mode distributional check + throughput (any backend).
 
-Usage: python benchmarks/table_mode_check.py [cpu|tpu] [n]
+Usage: python benchmarks/table_mode_check.py [cpu|gpu] [n]
 """
 import sys
 import time
@@ -20,13 +20,13 @@ if backend == "cpu":
 import jax.numpy as jnp
 import numpy as np
 
-from fast_monte_carlo_tpu.config import SimConfig
-from fast_monte_carlo_tpu.data import build_team_context_from_sp_flex, load_sp_flex
-from fast_monte_carlo_tpu.models.heads import load_heads
-from fast_monte_carlo_tpu.ops.game import make_exact_heads_eval, simulate_games
-from fast_monte_carlo_tpu.ops.pack import build_packs
-from fast_monte_carlo_tpu.ops.table_lookup import build_table_heads, make_table_heads_eval
-from fast_monte_carlo_tpu.stats import TS
+from fast_monte_carlo.config import SimConfig
+from fast_monte_carlo.data import build_team_context_from_sp_flex, load_sp_flex
+from fast_monte_carlo.models.heads import load_heads
+from fast_monte_carlo.ops.game import make_exact_heads_eval, simulate_games
+from fast_monte_carlo.ops.pack import build_packs
+from fast_monte_carlo.ops.table_lookup import build_table_heads, make_table_heads_eval
+from fast_monte_carlo.stats import TS
 
 print("devices:", jax.devices(), flush=True)
 n = int(sys.argv[2]) if len(sys.argv) > 2 else 4096

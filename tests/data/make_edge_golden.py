@@ -14,7 +14,7 @@ import pandas as pd
 REPO = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(REPO))
 
-from fast_monte_carlo_tpu import edge as E  # noqa: E402
+from fast_monte_carlo import edge as E  # noqa: E402
 
 
 def synth_frames():

@@ -12,7 +12,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from fast_monte_carlo_tpu.edge import (
+from fast_monte_carlo.edge import (
     Dist, alt_lines_from_sims, alt_lines_from_summary, alt_spread_table,
     alt_total_table, game_market_odds, ladder_lines,
     market_odds_from_summary, tease_legs,
@@ -116,7 +116,7 @@ def test_hist_and_sample_dists_agree(margins):
 def test_alt_lines_from_summary_matches_sims_path(margins, totals):
     import jax
 
-    from fast_monte_carlo_tpu.parallel import summarize_scores
+    from fast_monte_carlo.parallel import summarize_scores
 
     pts_a = (totals + margins) / 2.0
     pts_b = (totals - margins) / 2.0
@@ -192,7 +192,7 @@ def _players_frame(n=1000):
 
 
 def test_prop_ladder_matches_main_prop_at_quote():
-    from fast_monte_carlo_tpu.edge import player_prop_ladder, player_prop_odds
+    from fast_monte_carlo.edge import player_prop_ladder, player_prop_odds
 
     df = _players_frame()
     quote = 249.5
@@ -213,7 +213,7 @@ def test_prop_ladder_matches_main_prop_at_quote():
 
 
 def test_prop_ladder_count_stat_grid():
-    from fast_monte_carlo_tpu.edge import player_prop_ladder
+    from fast_monte_carlo.edge import player_prop_ladder
 
     tbl = player_prop_ladder(None, "Alpha", "WR One", "rec", 4.5,
                              players_df=_players_frame())
@@ -227,7 +227,7 @@ def test_prop_ladder_count_stat_grid():
 
 
 def test_cli_prop_command(tmp_path, capsys):
-    from fast_monte_carlo_tpu.cli import main
+    from fast_monte_carlo.cli import main
 
     df = _players_frame()
     pd.DataFrame([{"team": "Alpha", "opp": "Beta", "pts": 28,

@@ -12,11 +12,11 @@ import jax
 import numpy as np
 import pytest
 
-from fast_monte_carlo_tpu.config import SimConfig
-from fast_monte_carlo_tpu.data import build_team_context_from_sp_flex, load_sp_flex
-from fast_monte_carlo_tpu.models.heads import load_heads
-from fast_monte_carlo_tpu.ops.game import make_analytic_heads_eval, simulate_games
-from fast_monte_carlo_tpu.ops.pack import build_packs
+from fast_monte_carlo.config import SimConfig
+from fast_monte_carlo.data import build_team_context_from_sp_flex, load_sp_flex
+from fast_monte_carlo.models.heads import load_heads
+from fast_monte_carlo.ops.game import make_analytic_heads_eval, simulate_games
+from fast_monte_carlo.ops.pack import build_packs
 
 
 @pytest.fixture(scope="module")

@@ -4,14 +4,14 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from fast_monte_carlo_tpu import (
+from fast_monte_carlo import (
     SimConfig, csv_base_from, load_heads, simulate_matchup, summary_frame,
 )
-from fast_monte_carlo_tpu.api import players_frame, scores_frame, simulate_upcoming_matchup
-from fast_monte_carlo_tpu.boxscore import format_boxscore, mean_boxscore
-from fast_monte_carlo_tpu.data import build_team_context_from_sp_flex, load_sp_flex
-from fast_monte_carlo_tpu import edge as E
-from fast_monte_carlo_tpu.store import load_sim_bundle, make_signature, save_sim_bundle
+from fast_monte_carlo.api import players_frame, scores_frame, simulate_upcoming_matchup
+from fast_monte_carlo.boxscore import format_boxscore, mean_boxscore
+from fast_monte_carlo.data import build_team_context_from_sp_flex, load_sp_flex
+from fast_monte_carlo import edge as E
+from fast_monte_carlo.store import load_sim_bundle, make_signature, save_sim_bundle
 
 
 @pytest.fixture(scope="module")
@@ -44,7 +44,7 @@ def test_focus_usage_tracked_slots(contexts):
     assert "Avery Johnson" in a.qb.names
     assert a.qb.tracked[a.qb.names.index("Avery Johnson")]
     # remainder goes to the __Other__ sentinel, untracked
-    from fast_monte_carlo_tpu.data.usage import OTHER_SENTINEL
+    from fast_monte_carlo.data.usage import OTHER_SENTINEL
     assert OTHER_SENTINEL in a.rush.names
     assert not a.rush.tracked[a.rush.names.index(OTHER_SENTINEL)]
     np.testing.assert_allclose(a.qb.share.sum(), 1.0, atol=1e-9)
@@ -172,7 +172,7 @@ def test_runner_memo_identity(contexts, reference_dir):
     quality, shard) -> the same MatchupRunner instance; any knob change ->
     a fresh one.  Contexts/heads are content-memoized singletons, so
     instance identity is the staleness signal."""
-    from fast_monte_carlo_tpu import api
+    from fast_monte_carlo import api
 
     a, b = contexts
     heads = load_heads(reference_dir)
@@ -188,7 +188,7 @@ def test_cli_slate_lines(reference_dir, tmp_path, capsys):
     summaries (the unsharded default routes through the summary sweep)."""
     import pandas as pd
 
-    from fast_monte_carlo_tpu.cli import main
+    from fast_monte_carlo.cli import main
 
     games_csv = tmp_path / "games.csv"
     pd.DataFrame({"team_a": ["Kansas State"],
@@ -214,7 +214,7 @@ def test_cli_slate_lines_batched_rejected_before_sim(tmp_path, capsys):
     batched path never accumulates)."""
     import pandas as pd
 
-    from fast_monte_carlo_tpu.cli import main
+    from fast_monte_carlo.cli import main
 
     games_csv = tmp_path / "games.csv"
     pd.DataFrame({"team_a": ["A"], "team_b": ["B"]}).to_csv(games_csv, index=False)
@@ -234,9 +234,9 @@ def test_cli_slate_props(reference_dir, tmp_path, capsys):
     """cli slate --props: whole-slate prop scan with device reductions."""
     import pandas as pd
 
-    from fast_monte_carlo_tpu.cli import main
+    from fast_monte_carlo.cli import main
 
-    from fast_monte_carlo_tpu.models.heads import load_heads
+    from fast_monte_carlo.models.heads import load_heads
 
     heads = load_heads(reference_dir)
     s1_cats = heads.stage1.layout.categories["passer_name"]
@@ -264,7 +264,7 @@ def test_cli_edges_device(reference_dir, tmp_path, capsys):
     """cli edges --device: sim + markets + props entirely on-device."""
     import pandas as pd
 
-    from fast_monte_carlo_tpu.cli import main
+    from fast_monte_carlo.cli import main
 
     props = tmp_path / "props.csv"
     pd.DataFrame({
@@ -292,7 +292,7 @@ def test_cli_sim_then_file_edges(reference_dir, tmp_path, capsys, monkeypatch):
     scores_/players_ files, then the file-based `edges` command (no
     --device) discovers them by fuzzy team match and prints the market
     report (edge_finder.py find_edges :586-614 over saved files)."""
-    from fast_monte_carlo_tpu.cli import main
+    from fast_monte_carlo.cli import main
 
     monkeypatch.chdir(tmp_path)
     rc = main([
@@ -321,8 +321,8 @@ def test_cli_train(tmp_path, capsys):
     import numpy as np
     import pandas as pd
 
-    from fast_monte_carlo_tpu.cli import main
-    from fast_monte_carlo_tpu.train import pipeline as P
+    from fast_monte_carlo.cli import main
+    from fast_monte_carlo.train import pipeline as P
 
     rng = np.random.default_rng(3)
     n = 600

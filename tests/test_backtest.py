@@ -6,7 +6,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from fast_monte_carlo_tpu.backtest import (
+from fast_monte_carlo.backtest import (
     calibration_report, join_results, ks_uniform, pit_values,
     point_metrics, win_calibration,
 )
@@ -120,7 +120,7 @@ def test_calibration_report_requires_a_match():
 
 
 def test_cli_backtest(reference_dir, tmp_path, capsys):
-    from fast_monte_carlo_tpu.cli import main
+    from fast_monte_carlo.cli import main
 
     finals = tmp_path / "finals.csv"
     pd.DataFrame({
@@ -146,7 +146,7 @@ def test_backtest_slate_end_to_end(reference_dir):
     """Full path off real sims: simulate two matchups, score them against
     plausible finals, and check every report block is populated and the
     PIT values are honest probabilities."""
-    from fast_monte_carlo_tpu.backtest import backtest_slate
+    from fast_monte_carlo.backtest import backtest_slate
 
     results = pd.DataFrame({
         "team_a": ["Iowa State", "Kansas State"],  # one row reversed
@@ -173,7 +173,7 @@ def test_dist_affine_and_market_calibration():
     scales dispersion about the mean in BOTH representations; the
     MarketCalibration wrapper keeps spread + moneyline + total mutually
     consistent through market_odds_from_summary."""
-    from fast_monte_carlo_tpu.edge import Dist, MarketCalibration
+    from fast_monte_carlo.edge import Dist, MarketCalibration
 
     rng = np.random.default_rng(0)
     vals = rng.normal(55.0, 10.0, 4000)
@@ -199,8 +199,8 @@ def test_dist_affine_and_market_calibration():
 def test_fit_calibration_from_report():
     """fit_calibration returns the negated point biases as shifts, with
     per-shift SEs, consumable by market_odds_from_summary."""
-    from fast_monte_carlo_tpu.backtest import fit_calibration
-    from fast_monte_carlo_tpu.edge import MarketCalibration
+    from fast_monte_carlo.backtest import fit_calibration
+    from fast_monte_carlo.edge import MarketCalibration
 
     rows = pd.DataFrame({
         "mean_margin_a": [5.0, 3.0, -2.0, 6.0],

@@ -1,9 +1,8 @@
-"""The driver-facing bench surface: `python bench.py --smoke` must run end
-to end on CPU and print exactly one parseable JSON line with the contract
-fields (the driver records this output every round).  Round 4 adds the
-self-describing `meta` block and the wall-clock budget watchdog (emit
-best-so-far instead of dying silent — the BENCH_r03 rc=124 fix)."""
+"""The bench surface: `python bench.py --smoke` must run end to end on CPU
+with the seeded inputs and print exactly one parseable JSON line with the
+contract fields and the self-describing `meta` block."""
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -34,26 +33,11 @@ def test_bench_smoke_json_contract():
     # the meta block makes BENCH_r* files self-describing across rounds
     meta = rec["meta"]
     assert {"n_games", "chunk_games", "rng", "mode", "workload", "stats",
-            "quality", "ndev", "sharded", "setup_s", "compile_s", "runs",
-            "emit"} <= set(meta)
-    assert meta["emit"] == "complete" and len(meta["runs"]) >= 1
+            "quality", "ndev", "sharded", "device", "setup_s", "compile_s",
+            "runs"} <= set(meta)
+    assert meta["device"]["platform"] == "cpu" and len(meta["runs"]) >= 1
     # sanity block goes to stderr, not stdout
     assert "sanity" in proc.stderr
-
-
-def test_bench_budget_expiry_emits_best_so_far():
-    """A budget that expires mid-refinement must still produce the JSON
-    line (rc=0, emit=budget_expired) — never a silent rc=124-style kill."""
-    proc = _run("--repeats", "500", "--budget", "15")
-    assert proc.returncode == 0, proc.stderr[-2000:]
-    rec = _one_json_line(proc)
-    assert rec["value"] > 0
-    assert rec["meta"]["emit"] in ("budget_expired", "complete")
-    # 500 repeats cannot fit in 15s: either the budget-aware loop skipped
-    # remaining repeats, or the watchdog emitted mid-refinement
-    assert (rec["meta"]["emit"] == "budget_expired"
-            or "skipping full-shape repeat" in proc.stderr)
-    assert len(rec["meta"]["runs"]) < 500
 
 
 def test_bench_shard_smoke():
@@ -66,11 +50,13 @@ def test_bench_shard_smoke():
     assert rec["meta"]["sharded"] is True and rec["meta"]["ndev"] >= 1
 
 
-def test_bench_budget_too_small_is_loud():
-    """If the budget expires before ANY measurement (compile in flight),
-    bench exits rc=3 with a diagnostic — distinguishable from a crash,
-    and the stderr explains that a retry will hit the finished compile."""
-    proc = _run("--repeats", "1", "--budget", "0.5")
-    assert proc.returncode == 3, (proc.returncode, proc.stderr[-500:])
+def test_bench_without_gpu_measures_nothing():
+    """Outside --smoke the bench refuses a CPU backend: it exits non-zero
+    and prints no JSON rather than timing the CPU."""
+    proc = subprocess.run(
+        [sys.executable, str(REPO / "bench.py"), "-n", "64", "--no-lanes"],
+        capture_output=True, text=True, timeout=300, cwd=REPO,
+        env={**os.environ, "JAX_PLATFORMS": "cpu"})
+    assert proc.returncode != 0
     assert not proc.stdout.strip()
-    assert "budget expired before ANY measurement" in proc.stderr
+    assert "no GPU" in proc.stderr

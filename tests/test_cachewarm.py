@@ -12,14 +12,14 @@ import dataclasses
 import numpy as np
 import pytest
 
-from fast_monte_carlo_tpu.config import SimConfig
-from fast_monte_carlo_tpu.data import build_team_context_from_sp_flex, load_sp_flex
-from fast_monte_carlo_tpu.models.heads import load_heads
-from fast_monte_carlo_tpu.models.tables import (
+from fast_monte_carlo.config import SimConfig
+from fast_monte_carlo.data import build_team_context_from_sp_flex, load_sp_flex
+from fast_monte_carlo.models.heads import load_heads
+from fast_monte_carlo.models.tables import (
     build_fused_table, cachewarm_collapse, fused_head_groups, nano_profile,
 )
-from fast_monte_carlo_tpu.matchup import build_direction
-from fast_monte_carlo_tpu.oracle import OracleMatchup
+from fast_monte_carlo.matchup import build_direction
+from fast_monte_carlo.oracle import OracleMatchup
 
 
 @pytest.fixture(scope="module")
@@ -82,7 +82,7 @@ def test_collapse_picks_real_channels_first_visit_wins(setup):
 
 def test_engine_runs_in_cachewarm_mode(setup):
     a, b, heads = setup
-    from fast_monte_carlo_tpu.api import MatchupRunner
+    from fast_monte_carlo.api import MatchupRunner
     e = dataclasses.replace(SimConfig().engine, sd_mode="cachewarm",
                             cachewarm_games=8)
     cfg = SimConfig().replace(engine=e)
@@ -99,9 +99,9 @@ def test_perhead_stage1_pq_collapse_slot_mapping():
     slot -> dedup row via row_map, pq events decode the flattened K*K pair
     map; recorded cells pick the first-visit sd channel, others fall back
     to the iid-frozen pick."""
-    from fast_monte_carlo_tpu.config import SimConfig
-    from fast_monte_carlo_tpu.models.tables import HostTable, TableProfile, TableSet
-    from fast_monte_carlo_tpu.ops.table_lookup import _apply_sd_mode
+    from fast_monte_carlo.config import SimConfig
+    from fast_monte_carlo.models.tables import HostTable, TableProfile, TableSet
+    from fast_monte_carlo.ops.table_lookup import _apply_sd_mode
 
     prof = TableProfile(dist=np.asarray([1.0, 5.0]),
                         ytg=np.asarray([10.0, 50.0]),
@@ -153,7 +153,7 @@ def test_slate_runner_cachewarm(setup, reference_dir):
     a, b, heads = setup
     sp = load_sp_flex(str(reference_dir / "PregameSPPlus2025_1.csv"))
     c = build_team_context_from_sp_flex("Texas Tech", 2025, 1, sp)
-    from fast_monte_carlo_tpu.api import SlateRunner
+    from fast_monte_carlo.api import SlateRunner
     e = dataclasses.replace(SimConfig().engine, sd_mode="cachewarm",
                             cachewarm_games=8)
     cfg = SimConfig().replace(engine=e)

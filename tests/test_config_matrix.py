@@ -17,8 +17,8 @@ import jax
 import numpy as np
 import pytest
 
-from fast_monte_carlo_tpu.api import MatchupRunner
-from fast_monte_carlo_tpu.config import SimConfig
+from fast_monte_carlo.api import MatchupRunner
+from fast_monte_carlo.config import SimConfig
 
 # ~35 compiled programs: matrix-wide smoke belongs to the full suite,
 # not the -m "not slow" dev loop
@@ -27,7 +27,7 @@ pytestmark = pytest.mark.slow
 
 @pytest.fixture(scope="module")
 def contexts(reference_dir):
-    from fast_monte_carlo_tpu.data import (
+    from fast_monte_carlo.data import (
         build_team_context_from_sp_flex, load_sp_flex,
     )
     sp = load_sp_flex(str(reference_dir / "PregameSPPlus2025_1.csv"))
@@ -58,7 +58,7 @@ SELECT = ("auto", "chain", "dot")
                          list(itertools.product(RNG, (False, True), SELECT)))
 def test_rng_stats_select_matrix(contexts, reference_dir, rng_impl,
                                  collect_stats, nano_select):
-    from fast_monte_carlo_tpu.models.heads import load_heads
+    from fast_monte_carlo.models.heads import load_heads
 
     a, b = contexts
     heads = load_heads(reference_dir)
@@ -76,8 +76,6 @@ LOOP_CELLS = [
     dict(scan_unroll=1),
     dict(scan_unroll=2),
     dict(antithetic=True),
-    dict(rng_impl="pallas"),        # per-step HW-PRNG kernel (CPU fallback)
-    dict(rng_impl="pallas_chunk"),  # chunk-amortized variant
     dict(sd_mode="frozen"),
     dict(sd_mode="marginal"),
 ]
@@ -94,7 +92,7 @@ def test_engine_loop_knob_cells(contexts, engine_kw):
 def test_fumbles_head_cell(contexts, reference_dir):
     """enable_fumbles is a MODEL knob (cfg.model): the optional trained
     head the reference never wired (run_fumble.json)."""
-    from fast_monte_carlo_tpu.models.heads import load_heads
+    from fast_monte_carlo.models.heads import load_heads
 
     a, b = contexts
     heads = load_heads(reference_dir)
@@ -107,7 +105,7 @@ def test_fumbles_head_cell(contexts, reference_dir):
 
 def test_sd_mode_cachewarm_cell(contexts, reference_dir):
     """cachewarm needs real heads (it replays an oracle warm-up)."""
-    from fast_monte_carlo_tpu.models.heads import load_heads
+    from fast_monte_carlo.models.heads import load_heads
 
     a, b = contexts
     heads = load_heads(reference_dir)
@@ -120,8 +118,8 @@ def test_sd_mode_cachewarm_cell(contexts, reference_dir):
 def test_summary_equals_raw_on_every_rng(contexts, reference_dir):
     """run_pairs_summary's device accumulation must agree with the raw
     score batch under every RNG implementation (not just the default)."""
-    from fast_monte_carlo_tpu.models.heads import load_heads
-    from fast_monte_carlo_tpu.parallel import summarize_scores
+    from fast_monte_carlo.models.heads import load_heads
+    from fast_monte_carlo.parallel import summarize_scores
 
     a, b = contexts
     heads = load_heads(reference_dir)

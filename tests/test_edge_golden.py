@@ -9,7 +9,7 @@ from pathlib import Path
 
 import pytest
 
-from fast_monte_carlo_tpu import edge as E
+from fast_monte_carlo import edge as E
 
 GOLDEN = json.loads(
     (Path(__file__).parent / "data" / "edge_golden.json").read_text())

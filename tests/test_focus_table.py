@@ -4,13 +4,13 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from fast_monte_carlo_tpu.api import MatchupRunner, players_frame
-from fast_monte_carlo_tpu.config import SimConfig
-from fast_monte_carlo_tpu.data import build_team_context_from_sp_flex, load_sp_flex
-from fast_monte_carlo_tpu.models.heads import load_heads
-from fast_monte_carlo_tpu.models.tables import slate_profile
-from fast_monte_carlo_tpu.oracle import OracleMatchup
-from fast_monte_carlo_tpu.stats import PC_ATT, PC_YDS, ROLE_PASS, ROLE_REC
+from fast_monte_carlo.api import MatchupRunner, players_frame
+from fast_monte_carlo.config import SimConfig
+from fast_monte_carlo.data import build_team_context_from_sp_flex, load_sp_flex
+from fast_monte_carlo.models.heads import load_heads
+from fast_monte_carlo.models.tables import slate_profile
+from fast_monte_carlo.oracle import OracleMatchup
+from fast_monte_carlo.stats import PC_ATT, PC_YDS, ROLE_PASS, ROLE_REC
 
 
 @pytest.fixture(scope="module")
@@ -101,9 +101,9 @@ def test_scan_props_device(focus_env):
     the file-based player_prop_odds math (edge_finder.py:340-390)."""
     import jax
 
-    from fast_monte_carlo_tpu.api import MatchupRunner, players_frame
-    from fast_monte_carlo_tpu.config import SimConfig
-    from fast_monte_carlo_tpu.edge import scan_props_device, scan_props_for_matchup
+    from fast_monte_carlo.api import MatchupRunner, players_frame
+    from fast_monte_carlo.config import SimConfig
+    from fast_monte_carlo.edge import scan_props_device, scan_props_for_matchup
 
     heads, a, b, qbs, focus_csv = focus_env
     runner = MatchupRunner(a, b, heads, SimConfig(), mode="table")

@@ -12,14 +12,14 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from fast_monte_carlo_tpu.compat import load_sklearn_artifact
-from fast_monte_carlo_tpu.models import (
+from fast_monte_carlo.compat import load_sklearn_artifact
+from fast_monte_carlo.models import (
     FlatForest,
     forest_from_gbr_pipeline,
     forest_from_xgb_json,
     load_xgb_json,
 )
-from fast_monte_carlo_tpu.models.sklearn_gbr import layout_from_column_transformer
+from fast_monte_carlo.models.sklearn_gbr import layout_from_column_transformer
 
 from conftest import make_state_batch
 

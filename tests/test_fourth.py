@@ -12,13 +12,13 @@ import dataclasses
 import numpy as np
 import pytest
 
-from fast_monte_carlo_tpu.api import MatchupRunner
-from fast_monte_carlo_tpu.config import SimConfig
-from fast_monte_carlo_tpu.data import (
+from fast_monte_carlo.api import MatchupRunner
+from fast_monte_carlo.config import SimConfig
+from fast_monte_carlo.data import (
     build_team_context_from_sp_flex, load_sp_flex,
 )
-from fast_monte_carlo_tpu.models import analytic
-from fast_monte_carlo_tpu.ops.game import Situation
+from fast_monte_carlo.models import analytic
+from fast_monte_carlo.ops.game import Situation
 
 
 @pytest.fixture(scope="module")
@@ -139,18 +139,18 @@ def test_play_step_force_validation():
     """play_step rejects unknown fourth.force values at trace time."""
     import jax
 
-    from fast_monte_carlo_tpu.ops.game import (
+    from fast_monte_carlo.ops.game import (
         initial_state, make_analytic_heads_eval, play_step,
     )
-    from fast_monte_carlo_tpu.ops.pack import build_packs
+    from fast_monte_carlo.ops.pack import build_packs
     cfg = SimConfig()
     bad = dataclasses.replace(
         cfg, fourth=dataclasses.replace(cfg.fourth, force="teleport"))
-    sp = load_sp_flex("/root/reference/PregameSPPlus2025_1.csv")
-    a = build_team_context_from_sp_flex("Kansas State", 2025, 1, sp)
-    b = build_team_context_from_sp_flex("Iowa State", 2025, 1, sp)
-    from fast_monte_carlo_tpu.models.heads import load_heads
-    pack, _ = build_packs(a, b, load_heads("/root/reference"), cfg)
+    sp = load_sp_flex("seeded:0")
+    a = build_team_context_from_sp_flex("Team 030", 2025, 1, sp)
+    b = build_team_context_from_sp_flex("Team 041", 2025, 1, sp)
+    from fast_monte_carlo.models.heads import load_heads
+    pack, _ = build_packs(a, b, load_heads("seeded:0"), cfg)
     st = initial_state(4, 0, cfg, pack.k)
     with pytest.raises(ValueError):
         play_step(st, jax.random.PRNGKey(0), pack, bad,
@@ -161,8 +161,8 @@ def test_oracle_force_first_closed_form(reference_dir):
     """The oracle's force_first knob reproduces the same closed-form
     one-play endgames as the engine's forced play: fg with 5s left at the
     20 wins iff the 37-yard kick is good; punt ties every game."""
-    from fast_monte_carlo_tpu.models.heads import load_heads
-    from fast_monte_carlo_tpu.oracle import OracleMatchup
+    from fast_monte_carlo.models.heads import load_heads
+    from fast_monte_carlo.oracle import OracleMatchup
 
     cfg = SimConfig()
     sp = load_sp_flex(str(reference_dir / "PregameSPPlus2025_1.csv"))
@@ -199,8 +199,8 @@ def test_forced_continuations_match_oracle(reference_dir):
     (table mode) and the scalar oracle (force_first) within MC + table-
     quantization bounds.  A swapped or leaky force semantics fails
     loudly — fg and punt sit ~35pp apart here."""
-    from fast_monte_carlo_tpu.models.heads import load_heads
-    from fast_monte_carlo_tpu.oracle import OracleMatchup
+    from fast_monte_carlo.models.heads import load_heads
+    from fast_monte_carlo.oracle import OracleMatchup
 
     cfg = SimConfig()
     sp = load_sp_flex(str(reference_dir / "PregameSPPlus2025_1.csv"))
@@ -229,7 +229,7 @@ def test_forced_continuations_match_oracle(reference_dir):
 
 def test_evaluate_fourth_down_end_to_end(reference_dir):
     """Full API: table mode, real SP+ file, response schema + best pick."""
-    from fast_monte_carlo_tpu.api import evaluate_fourth_down
+    from fast_monte_carlo.api import evaluate_fourth_down
 
     sit = Situation(offense=0, sec=240, down=4, dist=2.0, ytg=35.0,
                     score_a=20, score_b=21)
@@ -248,7 +248,7 @@ def test_evaluate_fourth_down_end_to_end(reference_dir):
 
 
 def test_cli_fourth(reference_dir, capsys):
-    from fast_monte_carlo_tpu.cli import main
+    from fast_monte_carlo.cli import main
 
     rc = main([
         "fourth", "Kansas State", "Iowa State",

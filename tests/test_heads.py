@@ -2,9 +2,9 @@
 import numpy as np
 import pytest
 
-from fast_monte_carlo_tpu.config import DEFAULT_CONFIG as CFG
-from fast_monte_carlo_tpu.models import analytic
-from fast_monte_carlo_tpu.models.heads import ST1_FEATURES, load_heads
+from fast_monte_carlo.config import DEFAULT_CONFIG as CFG
+from fast_monte_carlo.models import analytic
+from fast_monte_carlo.models.heads import ST1_FEATURES, load_heads
 
 
 @pytest.fixture(scope="module")

@@ -5,7 +5,7 @@ E[log bankroll] in the push-aware three-outcome model."""
 import numpy as np
 import pytest
 
-from fast_monte_carlo_tpu.edge import kelly_fraction, season_win_market
+from fast_monte_carlo.edge import kelly_fraction, season_win_market
 
 
 def test_classic_no_push_formula():
@@ -60,7 +60,7 @@ def test_wired_into_season_market():
 
 
 def test_wired_into_cross_game_parlay():
-    from fast_monte_carlo_tpu.edge import cross_game_parlay
+    from fast_monte_carlo.edge import cross_game_parlay
 
     blk = {"team": "A", "opp": "B", "legs": [], "p_all_win": 0.5,
            "p_lose": 0.4, "p_void": 0.02, "p_independent": 0.5}

@@ -12,18 +12,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fast_monte_carlo_tpu.api import MatchupRunner
-from fast_monte_carlo_tpu.config import SimConfig
-from fast_monte_carlo_tpu.data import (
+from fast_monte_carlo.api import MatchupRunner
+from fast_monte_carlo.config import SimConfig
+from fast_monte_carlo.data import (
     build_team_context_from_sp_flex, load_sp_flex,
 )
-from fast_monte_carlo_tpu.models.heads import load_heads
-from fast_monte_carlo_tpu.ops.game import (
+from fast_monte_carlo.models.heads import load_heads
+from fast_monte_carlo.ops.game import (
     Situation, initial_state, make_exact_heads_eval, simulate_games,
     state_from_situation,
 )
-from fast_monte_carlo_tpu.ops.pack import build_packs
-from fast_monte_carlo_tpu.oracle import OracleMatchup
+from fast_monte_carlo.ops.pack import build_packs
+from fast_monte_carlo.oracle import OracleMatchup
 
 
 @pytest.fixture(scope="module")
@@ -47,7 +47,7 @@ def test_situation_from_fields_shared_parser():
     """The ONE situation parser behind the CLI live/fourth commands and
     the HTTP body parser — offense letters, quarter/clock arithmetic,
     and the error surfaces."""
-    from fast_monte_carlo_tpu.api import situation_from_fields
+    from fast_monte_carlo.api import situation_from_fields
 
     s = situation_from_fields(ytg=30, offense="B", quarter=4,
                               clock="05:12", down=2, dist=7,
@@ -165,7 +165,7 @@ def test_run_live_deterministic(analytic_runner):
 def test_run_live_no_recompile_across_situations(analytic_runner):
     """The situation is a runtime input: two different live states reuse
     ONE compiled program (serving would otherwise recompile per state)."""
-    from fast_monte_carlo_tpu.api import _live_moments_jit
+    from fast_monte_carlo.api import _live_moments_jit
 
     cfg_r, heads_fn_r = analytic_runner._resolved(False)
     jitted = _live_moments_jit(cfg_r, heads_fn_r)
@@ -255,7 +255,7 @@ def test_live_engine_matches_oracle(setup, sit):
 
 def test_simulate_live_game_end_to_end(reference_dir):
     """Names-in dict-out convenience: the serving path's core."""
-    from fast_monte_carlo_tpu.api import simulate_live_game
+    from fast_monte_carlo.api import simulate_live_game
 
     sit = Situation(offense=0, sec=500, down=1, dist=10.0, ytg=65.0,
                     score_a=21, score_b=17)
@@ -269,7 +269,7 @@ def test_simulate_live_game_end_to_end(reference_dir):
     assert abs(row["win_a"] + row["win_b"] + row["tie"] - 1.0) < 1e-6
     assert row["mean_a"] >= 21.0 and row["mean_b"] >= 17.0
     # the summary's histograms price live markets
-    from fast_monte_carlo_tpu.edge import market_odds_from_summary
+    from fast_monte_carlo.edge import market_odds_from_summary
     mk = market_odds_from_summary(summary, "Kansas State", "Iowa State",
                                   spread=-3.5, total=55.5)
     assert {"spread", "total"} <= set(mk)
@@ -315,7 +315,7 @@ def test_run_live_batch_matches_run_live(analytic_runner):
 def test_run_live_batch_one_program_across_batches(analytic_runner):
     """The (S,) situation arrays are runtime inputs: a second batch of the
     same (S, n_per) shape reuses the compiled program."""
-    from fast_monte_carlo_tpu.api import _live_batch_moments_jit
+    from fast_monte_carlo.api import _live_batch_moments_jit
 
     cfg_r, heads_fn_r = analytic_runner._resolved(False)
     jitted = _live_batch_moments_jit(cfg_r, heads_fn_r)
@@ -343,7 +343,7 @@ def test_run_live_batch_validation(analytic_runner):
 def test_simulate_live_curve_end_to_end(reference_dir):
     """Names-in frame-out curve: one row per situation, plus the stacked
     summary for per-point market pricing."""
-    from fast_monte_carlo_tpu.api import simulate_live_curve
+    from fast_monte_carlo.api import simulate_live_curve
 
     sits = [Situation(0, 2400, 1, 10.0, 75.0, 7, 7),
             Situation(0, 1200, 2, 4.0, 55.0, 14, 10),

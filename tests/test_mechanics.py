@@ -5,9 +5,9 @@ test_engine.py)."""
 import numpy as np
 import pytest
 
-from fast_monte_carlo_tpu.config import SimConfig
-from fast_monte_carlo_tpu.oracle import OracleMatchup, _GameState
-from fast_monte_carlo_tpu.data.context import RoleTable, TeamContext
+from fast_monte_carlo.config import SimConfig
+from fast_monte_carlo.oracle import OracleMatchup, _GameState
+from fast_monte_carlo.data.context import RoleTable, TeamContext
 
 
 def _ctx(name):
@@ -22,7 +22,7 @@ def _ctx(name):
 
 @pytest.fixture(scope="module")
 def m():
-    from fast_monte_carlo_tpu.models.heads import ModelHeads
+    from fast_monte_carlo.models.heads import ModelHeads
     # mechanics only — no forests needed; guard any accidental model call
     heads = ModelHeads()
     return OracleMatchup(_ctx("A"), _ctx("B"), heads)
@@ -96,7 +96,7 @@ def test_tick_to_zero_no_halftime(m):
 
 
 def test_go_table_multiplier_cap():
-    from fast_monte_carlo_tpu.models import analytic
+    from fast_monte_carlo.models import analytic
     cfg = SimConfig()
     # table 0.85 * 1.15 = 0.9775 < 1; 0.90 late-trailing * 1.15 capped at 1.0
     p = analytic.go_for_it_prob(np.float32(40.0), np.float32(1.0), 0, 2000, cfg)
@@ -120,7 +120,7 @@ def test_punt_spot_clip_semantics():
 
 
 def test_fg_distance_and_gate():
-    from fast_monte_carlo_tpu.models import analytic
+    from fast_monte_carlo.models import analytic
     cfg = SimConfig()
     # ytg 38 -> 55-yard attempt -> 0.50; ytg 39 would not be attempted
     assert float(analytic.field_goal_prob(np.float32(38 + 17), cfg)) == 0.50
@@ -153,8 +153,8 @@ def test_taper_piecewise_engine_equals_oracle():
     implement the same piecewise map (monte_carlo_cfb.py:470,482)."""
     import numpy as np
 
-    from fast_monte_carlo_tpu.ops.game import _taper
-    from fast_monte_carlo_tpu.oracle import _taper_scalar
+    from fast_monte_carlo.ops.game import _taper
+    from fast_monte_carlo.oracle import _taper_scalar
 
     ys = np.asarray([-5.0, 0.0, 10.0, 22.0, 23.0, 30.0, 42.0, 43.0, 80.0])
     t1, t2, r1, r2 = 22.0, 42.0, 0.60, 0.40
@@ -172,12 +172,12 @@ def test_classic_config_tapers_long_gains():
     import jax
     import numpy as np
 
-    from fast_monte_carlo_tpu.config import SimConfig, classic_config
-    from fast_monte_carlo_tpu.data.context import _build
-    from fast_monte_carlo_tpu.models.heads import ModelHeads
-    from fast_monte_carlo_tpu.ops.game import make_analytic_heads_eval, simulate_games
-    from fast_monte_carlo_tpu.ops.pack import build_packs
-    from fast_monte_carlo_tpu.stats import TS
+    from fast_monte_carlo.config import SimConfig, classic_config
+    from fast_monte_carlo.data.context import _build
+    from fast_monte_carlo.models.heads import ModelHeads
+    from fast_monte_carlo.ops.game import make_analytic_heads_eval, simulate_games
+    from fast_monte_carlo.ops.pack import build_packs
+    from fast_monte_carlo.stats import TS
 
     a = _build("Team A", 2025, 1, 15.6, 35.7, 20.0, {}, ".", 4)
     b = _build("Team B", 2025, 1, 11.0, 31.5, 20.6, {}, ".", 4)
@@ -208,11 +208,11 @@ def test_tail_compaction_finishes_and_matches():
     import jax
     import numpy as np
 
-    from fast_monte_carlo_tpu.config import SimConfig
-    from fast_monte_carlo_tpu.data.context import _build
-    from fast_monte_carlo_tpu.models.heads import ModelHeads
-    from fast_monte_carlo_tpu.ops.game import make_analytic_heads_eval, simulate_games
-    from fast_monte_carlo_tpu.ops.pack import build_packs
+    from fast_monte_carlo.config import SimConfig
+    from fast_monte_carlo.data.context import _build
+    from fast_monte_carlo.models.heads import ModelHeads
+    from fast_monte_carlo.ops.game import make_analytic_heads_eval, simulate_games
+    from fast_monte_carlo.ops.pack import build_packs
 
     a = _build("Team A", 2025, 1, 15.6, 35.7, 20.0, {}, ".", 4)
     b = _build("Team B", 2025, 1, 11.0, 31.5, 20.6, {}, ".", 4)

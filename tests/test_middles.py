@@ -11,7 +11,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from fast_monte_carlo_tpu.edge import (
+from fast_monte_carlo.edge import (
     Dist, middle_odds, middles_from_sims, middles_from_summary,
     spread_middle, total_middle,
 )
@@ -109,7 +109,7 @@ def test_total_middle_and_sims_adapter():
 def test_middles_summary_vs_samples_parity():
     """The histogram (device) representation prices the same middle as the
     raw samples at integer support."""
-    from fast_monte_carlo_tpu.parallel import summarize_scores
+    from fast_monte_carlo.parallel import summarize_scores
 
     rng = np.random.default_rng(11)
     margins = rng.normal(4.0, 13.0, size=4096).round().astype(int)
@@ -134,7 +134,7 @@ def test_middles_summary_vs_samples_parity():
 
 
 def test_print_middle(capsys):
-    from fast_monte_carlo_tpu.edge import print_middle_readable
+    from fast_monte_carlo.edge import print_middle_readable
 
     res = spread_middle(Dist.from_values(VALS), "A", "B", -3.5, 7.5)
     print_middle_readable(res)
@@ -144,7 +144,7 @@ def test_print_middle(capsys):
 
 def test_cli_edges_middle(tmp_path, capsys, monkeypatch):
     """File-path CLI: --mid-spread/--mid-total price off the saved sims."""
-    from fast_monte_carlo_tpu.cli import main
+    from fast_monte_carlo.cli import main
 
     rng = np.random.default_rng(5)
     margins = rng.normal(5.0, 12.0, size=512).round()

@@ -77,7 +77,7 @@ N_PAIRS = int(os.environ.get("FMC_NORTHSTAR_PAIRS", "16384"))
 
 
 def _runner_cfg(sd_mode=None, **engine_kw):
-    from fast_monte_carlo_tpu.config import SimConfig
+    from fast_monte_carlo.config import SimConfig
     cfg = SimConfig()
     if sd_mode is not None:
         cfg = cfg.replace(engine=dataclasses.replace(
@@ -87,10 +87,10 @@ def _runner_cfg(sd_mode=None, **engine_kw):
 
 @pytest.fixture(scope="module")
 def contexts(reference_dir):
-    from fast_monte_carlo_tpu.data import (
+    from fast_monte_carlo.data import (
         build_team_context_from_sp_flex, load_sp_flex,
     )
-    from fast_monte_carlo_tpu.models.heads import load_heads
+    from fast_monte_carlo.models.heads import load_heads
 
     sp = load_sp_flex(str(reference_dir / "PregameSPPlus2025_1.csv"))
     a = build_team_context_from_sp_flex("Kansas State", 2025, 1, sp)
@@ -105,7 +105,7 @@ def _win(scores: np.ndarray) -> float:
 @pytest.fixture(scope="module")
 def axis_scores(contexts):
     """Production default: nano tables, live-sd 'axis'."""
-    from fast_monte_carlo_tpu.api import MatchupRunner
+    from fast_monte_carlo.api import MatchupRunner
 
     a, b, heads = contexts
     r = MatchupRunner(a, b, heads, _runner_cfg(), mode="table",
@@ -117,7 +117,7 @@ def axis_scores(contexts):
 @pytest.fixture(scope="module")
 def cachewarm_wins(contexts):
     """Faithful-mode ensemble: cachewarm@250 over the fixed seed set."""
-    from fast_monte_carlo_tpu.api import MatchupRunner
+    from fast_monte_carlo.api import MatchupRunner
 
     a, b, heads = contexts
     wins = []
@@ -208,7 +208,7 @@ def test_win_prob_proxy_default_on(contexts):
     at +0.18pp) — measured by the pre-registered 2×2 ablation in
     benchmarks/error_budget.py, not an unexplained bias.
     """
-    from fast_monte_carlo_tpu.api import MatchupRunner
+    from fast_monte_carlo.api import MatchupRunner
 
     cold = _BENCH / "oracle_margins_cold_262144.npz"
     assert cold.exists(), (

@@ -2,11 +2,11 @@
 import numpy as np
 import pytest
 
-from fast_monte_carlo_tpu.config import SimConfig
-from fast_monte_carlo_tpu.data import load_sp_flex, build_team_context_from_sp_flex
-from fast_monte_carlo_tpu.models.heads import load_heads
-from fast_monte_carlo_tpu.oracle import OracleMatchup
-from fast_monte_carlo_tpu.stats import TS
+from fast_monte_carlo.config import SimConfig
+from fast_monte_carlo.data import load_sp_flex, build_team_context_from_sp_flex
+from fast_monte_carlo.models.heads import load_heads
+from fast_monte_carlo.oracle import OracleMatchup
+from fast_monte_carlo.stats import TS
 
 
 @pytest.fixture(scope="module")

@@ -12,7 +12,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from fast_monte_carlo_tpu.edge import parlay_odds, resolve_parlay_legs
+from fast_monte_carlo.edge import parlay_odds, resolve_parlay_legs
 
 
 class _Tbl:
@@ -220,7 +220,7 @@ def test_prop_leg_requires_player_stats(tiny_out):
 def test_parlay_correlations(tiny_out):
     """Leg-indicator correlation matrix vs numpy's corrcoef on the same
     win indicators."""
-    from fast_monte_carlo_tpu.edge import parlay_correlations
+    from fast_monte_carlo.edge import parlay_correlations
 
     a, b, out, score, pstats = tiny_out
     legs = [{"kind": "moneyline", "team": "Alpha"},
@@ -248,7 +248,7 @@ def test_parlay_correlations(tiny_out):
 def test_cross_game_parlay_exact_product(tiny_out):
     """Independent blocks multiply exactly: verify against brute-force
     settlement over the cartesian product of the two games' trials."""
-    from fast_monte_carlo_tpu.edge import cross_game_parlay
+    from fast_monte_carlo.edge import cross_game_parlay
 
     a, b, out, score, pstats = tiny_out
     c = _Ctx("Gamma", qb=["QB C"])
@@ -285,7 +285,7 @@ def test_cross_game_parlay_exact_product(tiny_out):
         cross_game_parlay([blk1, parlay_odds(out, a, b, legs2 := [
             {"kind": "moneyline", "team": "Alpha"}])])
     # printer handles the cross shape
-    from fast_monte_carlo_tpu.edge import print_parlay_readable
+    from fast_monte_carlo.edge import print_parlay_readable
     print_parlay_readable(res)
 
 
@@ -295,11 +295,11 @@ def test_cross_game_parlay_exact_product(tiny_out):
 
 @pytest.fixture(scope="module")
 def sim_env(reference_dir, tmp_path_factory):
-    from fast_monte_carlo_tpu.api import MatchupRunner
-    from fast_monte_carlo_tpu.config import SimConfig
-    from fast_monte_carlo_tpu.data import (
+    from fast_monte_carlo.api import MatchupRunner
+    from fast_monte_carlo.config import SimConfig
+    from fast_monte_carlo.data import (
         build_team_context_from_sp_flex, load_sp_flex)
-    from fast_monte_carlo_tpu.models.heads import load_heads
+    from fast_monte_carlo.models.heads import load_heads
 
     rows = [dict(team="Kansas State", player="KSU QB", pos="QB", usage=90,
                  stat="pass_yards", yards=250),
@@ -352,7 +352,7 @@ def test_parlay_correlation_real_sim(sim_env):
 
 
 def test_simulate_parlay_end_to_end(reference_dir, sim_env):
-    from fast_monte_carlo_tpu.api import simulate_parlay
+    from fast_monte_carlo.api import simulate_parlay
 
     *_, focus = sim_env
     res = simulate_parlay(
@@ -375,7 +375,7 @@ def test_simulate_parlay_end_to_end(reference_dir, sim_env):
 
 
 def test_cli_parlay(reference_dir, tmp_path, capsys):
-    from fast_monte_carlo_tpu.cli import main
+    from fast_monte_carlo.cli import main
 
     legs = [{"kind": "moneyline", "team": "Kansas State"},
             {"kind": "total", "side": "under", "line": 60.5}]
@@ -395,7 +395,7 @@ def test_cli_parlay(reference_dir, tmp_path, capsys):
 def test_cli_parlay_tease(reference_dir, tmp_path, capsys):
     """--tease prices the ticket at shifted lines through the same path;
     a moneyline leg makes the teaser invalid (edge.tease_legs refuses)."""
-    from fast_monte_carlo_tpu.cli import main
+    from fast_monte_carlo.cli import main
 
     legs = [{"kind": "spread", "team": "Kansas State", "line": -7.5},
             {"kind": "total", "side": "under", "line": 48.5}]

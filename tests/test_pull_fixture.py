@@ -13,7 +13,7 @@ import json
 import pandas as pd
 import pytest
 
-from fast_monte_carlo_tpu.train import pipeline as P
+from fast_monte_carlo.train import pipeline as P
 
 PLAYS_FIXTURE = [
     {

@@ -16,8 +16,8 @@ STREAM = REPO / "benchmarks" / "oracle_reconstructed_8000.npz"
 def test_reconstructed_config_and_overlay(reference_dir):
     """The preset flips the play-model flag and the overlay fills exactly
     the snapshot's two missing artifacts: stage-2 head and temperature."""
-    from fast_monte_carlo_tpu.config import SimConfig, reconstructed_config
-    from fast_monte_carlo_tpu.models.heads import (
+    from fast_monte_carlo.config import SimConfig, reconstructed_config
+    from fast_monte_carlo.models.heads import (
         RECONSTRUCTED_DIR, load_heads, load_reconstructed_heads)
 
     cfg = reconstructed_config()
@@ -42,8 +42,8 @@ def test_reconstructed_stage2_probs_are_sane(reference_dir):
     """The reconstructed stage-2 head produces calibrated conditionals
     (the plausible-football guarantee reconstruct_stage2 exists for),
     near the analytic fallback it was labeled from."""
-    from fast_monte_carlo_tpu.config import SimConfig
-    from fast_monte_carlo_tpu.models.heads import (
+    from fast_monte_carlo.config import SimConfig
+    from fast_monte_carlo.models.heads import (
         ST1_FEATURES, load_reconstructed_heads)
 
     heads = load_reconstructed_heads(str(reference_dir))
@@ -79,11 +79,11 @@ def test_reconstructed_engine_matches_committed_stream(reference_dir):
     the memoized stream — the same cache-freeze mechanism the main error
     budget measures (benchmarks/RECONSTRUCTED_PARITY.md;
     VALIDATION.md round 5)."""
-    from fast_monte_carlo_tpu.api import MatchupRunner
-    from fast_monte_carlo_tpu.config import reconstructed_config
-    from fast_monte_carlo_tpu.data import (build_team_context_from_sp_flex,
+    from fast_monte_carlo.api import MatchupRunner
+    from fast_monte_carlo.config import reconstructed_config
+    from fast_monte_carlo.data import (build_team_context_from_sp_flex,
                                            load_sp_flex)
-    from fast_monte_carlo_tpu.models.heads import load_reconstructed_heads
+    from fast_monte_carlo.models.heads import load_reconstructed_heads
 
     assert STREAM.exists(), (
         "committed referee stream missing — regenerate via "

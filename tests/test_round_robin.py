@@ -13,7 +13,7 @@ import json
 import numpy as np
 import pytest
 
-from fast_monte_carlo_tpu.edge import (cross_game_parlay, parlay_odds,
+from fast_monte_carlo.edge import (cross_game_parlay, parlay_odds,
                                        round_robin, round_robin_blocks)
 from tests.test_parlay import _Ctx, _Out, _settle_reference
 
@@ -172,7 +172,7 @@ def test_round_robin_blocks_exact(rr_out):
 
 
 def test_print_round_robin(rr_out, capsys):
-    from fast_monte_carlo_tpu.edge import print_round_robin_readable
+    from fast_monte_carlo.edge import print_round_robin_readable
 
     a, b, out, *_ = rr_out
     print_round_robin_readable(round_robin(out, a, b, LEGS, by=2,
@@ -183,7 +183,7 @@ def test_print_round_robin(rr_out, capsys):
 
 
 def test_cli_parlay_rr(reference_dir, tmp_path, capsys):
-    from fast_monte_carlo_tpu.cli import main
+    from fast_monte_carlo.cli import main
 
     legs = [{"kind": "moneyline", "team": "Kansas State"},
             {"kind": "total", "side": "under", "line": 60.5},

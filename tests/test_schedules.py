@@ -1,25 +1,23 @@
-"""Chunk-schedule and buffered-RNG engine paths (round-3 perf levers).
+"""Chunk-schedule engine paths.
 
-Both paths must be BITWISE identical to the default single-chunk threefry
-engine on CPU: draw streams key on the absolute step index (schedule-
-invariant), and the pallas_chunk CPU fallback generates the same per-step
-threefry draws.  On TPU pallas_chunk switches to the hardware PRNG
-(distributional-equivalence contract, like rbg)."""
+A descending chunk schedule must be BITWISE identical to the default
+single-chunk threefry engine: draw streams key on the absolute step index,
+so they are schedule-invariant."""
 import dataclasses
 
 import jax
 import numpy as np
 import pytest
 
-from fast_monte_carlo_tpu.config import SimConfig
-from fast_monte_carlo_tpu.data import (
+from fast_monte_carlo.config import SimConfig
+from fast_monte_carlo.data import (
     build_team_context_from_sp_flex, load_sp_flex,
 )
-from fast_monte_carlo_tpu.models.heads import ModelHeads
-from fast_monte_carlo_tpu.ops.game import (
+from fast_monte_carlo.models.heads import ModelHeads
+from fast_monte_carlo.ops.game import (
     make_analytic_heads_eval, simulate_games,
 )
-from fast_monte_carlo_tpu.ops.pack import build_packs
+from fast_monte_carlo.ops.pack import build_packs
 
 
 @pytest.fixture(scope="module")
@@ -48,17 +46,3 @@ def test_tail_schedule_bitwise_identical(env):
         cfg_t = cfg.replace(engine=dataclasses.replace(
             cfg.engine, play_chunk_tail=tail))
         np.testing.assert_array_equal(_run(cfg_t, pack, he, n), want)
-
-
-def test_pallas_chunk_cpu_fallback_identical(env):
-    cfg, pack, he, n, want = env
-    cfg_p = cfg.replace(engine=dataclasses.replace(
-        cfg.engine, rng_impl="pallas_chunk"))
-    np.testing.assert_array_equal(_run(cfg_p, pack, he, n), want)
-
-
-def test_tail_schedule_with_pallas_chunk(env):
-    cfg, pack, he, n, want = env
-    cfg_b = cfg.replace(engine=dataclasses.replace(
-        cfg.engine, rng_impl="pallas_chunk", play_chunk_tail=8))
-    np.testing.assert_array_equal(_run(cfg_b, pack, he, n), want)

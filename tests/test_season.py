@@ -12,7 +12,7 @@ import itertools
 import numpy as np
 import pytest
 
-from fast_monte_carlo_tpu.edge import (
+from fast_monte_carlo.edge import (
     prob_to_american, season_win_market, season_win_pmf,
 )
 
@@ -99,7 +99,7 @@ def test_market_best_side_is_push_aware():
 
 @pytest.fixture(scope="module")
 def season_result(reference_dir):
-    from fast_monte_carlo_tpu.api import project_season
+    from fast_monte_carlo.api import project_season
 
     sp = str(reference_dir / "PregameSPPlus2025_1.csv")
     # team appears as side A once and side B once — exercises side pick-up
@@ -110,7 +110,7 @@ def season_result(reference_dir):
 
 
 def test_project_season_composes_slate(season_result, reference_dir):
-    from fast_monte_carlo_tpu.api import simulate_slate_summaries
+    from fast_monte_carlo.api import simulate_slate_summaries
 
     res = season_result
     sched = res["schedule"]
@@ -131,7 +131,7 @@ def test_project_season_composes_slate(season_result, reference_dir):
 
 
 def test_cli_season(reference_dir, capsys):
-    from fast_monte_carlo_tpu.cli import main
+    from fast_monte_carlo.cli import main
 
     sp = str(reference_dir / "PregameSPPlus2025_1.csv")
     rc = main([
@@ -148,7 +148,7 @@ def test_cli_season(reference_dir, capsys):
 
 
 def test_project_season_validation(reference_dir):
-    from fast_monte_carlo_tpu.api import project_season
+    from fast_monte_carlo.api import project_season
 
     sp = str(reference_dir / "PregameSPPlus2025_1.csv")
     with pytest.raises(ValueError, match="exactly one"):

@@ -12,7 +12,7 @@ import pytest
 
 @pytest.fixture(scope="module")
 def server(reference_dir):
-    from fast_monte_carlo_tpu.serve import ServeConfig, SimService, make_server
+    from fast_monte_carlo.serve import ServeConfig, SimService, make_server
 
     cfg = ServeConfig(sp_path=str(reference_dir / "PregameSPPlus2025_1.csv"),
                       artifact_dir=str(reference_dir), mode="analytic",
@@ -249,7 +249,7 @@ def test_request_cost_guards(server):
     outside {configured, analytic} and oversized games lists are rejected
     before any simulation."""
     base, _ = server
-    # mode='exact' would hold the service lock for hours (15.2 games/s)
+    # mode='exact' would hold the service lock for a long time
     code, out = _post(base + "/sim", {
         "team_a": "Kansas State", "team_b": "Iowa State",
         "n_pairs": 64, "mode": "exact"})
@@ -318,7 +318,7 @@ def test_serving_soak_no_unbounded_growth(server):
         assert code == 200, out
     rss1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
     code, h = _get(base + "/health")
-    from fast_monte_carlo_tpu.models.heads import _HEADS_MEMO_MAX
+    from fast_monte_carlo.models.heads import _HEADS_MEMO_MAX
     assert h["heads_memo"] <= _HEADS_MEMO_MAX
     assert h["device_tables"] <= 128  # _DEVICE_TABLE_CACHE_MAX
     # ru_maxrss is KB on Linux; allow 256MB of growth for jit caches
@@ -328,7 +328,7 @@ def test_serving_soak_no_unbounded_growth(server):
 def test_jsonable_handles_numpy_and_nan():
     import pandas as pd
 
-    from fast_monte_carlo_tpu.serve import jsonable
+    from fast_monte_carlo.serve import jsonable
 
     out = jsonable({"a": np.float32(1.5), "b": np.int64(2),
                     "c": float("nan"), "d": np.array([1.0, 2.0]).tolist(),
@@ -389,7 +389,7 @@ def test_deadline_guard_and_latency(reference_dir):
     reports per-endpoint p50/p95 latency off completed requests only."""
     import time
 
-    from fast_monte_carlo_tpu.serve import ServeConfig, SimService, make_server
+    from fast_monte_carlo.serve import ServeConfig, SimService, make_server
 
     cfg = ServeConfig(sp_path=str(reference_dir / "PregameSPPlus2025_1.csv"),
                       artifact_dir=str(reference_dir), mode="analytic",
@@ -436,7 +436,7 @@ def _wait_for_waiters(service, n, timeout=30.0):
 
 
 def _patched_slate_counter():
-    import fast_monte_carlo_tpu.api as api
+    import fast_monte_carlo.api as api
     calls = []
     real = api.simulate_slate_summaries
 
@@ -561,7 +561,7 @@ def test_sim_coalescing_deadline_sheds_followers(reference_dir):
     instead of hanging, and the service keeps answering afterwards."""
     import time as _time
 
-    from fast_monte_carlo_tpu.serve import ServeConfig, SimService, make_server
+    from fast_monte_carlo.serve import ServeConfig, SimService, make_server
 
     cfg = ServeConfig(sp_path=str(reference_dir / "PregameSPPlus2025_1.csv"),
                       artifact_dir=str(reference_dir), mode="analytic",
@@ -637,7 +637,7 @@ def test_live_single_flight_identical_requests(server):
     """Identical concurrent /live requests share ONE device computation
     (generic single-flight; the live-polling pattern), and the shared
     answer equals what each would have computed alone."""
-    import fast_monte_carlo_tpu.api as api
+    import fast_monte_carlo.api as api
     base, service = server
     body = {"team_a": "Kansas State", "team_b": "Iowa State",
             "offense": "B", "quarter": 4, "clock": "06:30", "down": 2,

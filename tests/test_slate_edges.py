@@ -8,11 +8,11 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from fast_monte_carlo_tpu.edge import (
+from fast_monte_carlo.edge import (
     breakeven_minus110, print_slate_edges, prob_to_american,
     slate_market_table, summary_moneyline,
 )
-from fast_monte_carlo_tpu.parallel.aggregate import (
+from fast_monte_carlo.parallel.aggregate import (
     MARGIN_OFF, MAX_PTS, ScoreSummary,
 )
 
@@ -35,7 +35,7 @@ def test_dist_hist_matches_samples():
     path) and integer-support histograms (device path) — must agree on
     every market query for integer-valued data; all markets in edge.py
     reduce through these five queries."""
-    from fast_monte_carlo_tpu.edge import Dist
+    from fast_monte_carlo.edge import Dist
 
     rng = np.random.default_rng(7)
     vals = rng.integers(-40, 41, size=5000).astype(float)
@@ -58,7 +58,7 @@ def test_dist_hist_matches_samples():
 def test_dist_counts_require_support():
     """counts without support must fail loudly at construction, not with an
     opaque NoneType TypeError at the first market query."""
-    from fast_monte_carlo_tpu.edge import Dist
+    from fast_monte_carlo.edge import Dist
 
     with pytest.raises(ValueError, match="requires support"):
         Dist(counts=np.ones(5))
@@ -67,7 +67,7 @@ def test_dist_counts_require_support():
 def test_simulate_slate_summaries_empty_slate(reference_dir):
     """An empty games list returns an empty frame (the slate-props
     contract) instead of crashing tree_map on zero summaries."""
-    from fast_monte_carlo_tpu.api import simulate_slate_summaries
+    from fast_monte_carlo.api import simulate_slate_summaries
 
     sp_path = str(reference_dir / "PregameSPPlus2025_1.csv")
     df = simulate_slate_summaries([], sp_path=sp_path, n_pairs=8)
@@ -128,12 +128,12 @@ def test_simulate_slate_props(reference_dir, tmp_path):
     check)."""
     import jax
 
-    from fast_monte_carlo_tpu.api import MatchupRunner, simulate_slate_props
-    from fast_monte_carlo_tpu.data import (
+    from fast_monte_carlo.api import MatchupRunner, simulate_slate_props
+    from fast_monte_carlo.data import (
         build_team_context_from_sp_flex, load_sp_flex,
     )
-    from fast_monte_carlo_tpu.edge import scan_props_device
-    from fast_monte_carlo_tpu.models.heads import load_heads
+    from fast_monte_carlo.edge import scan_props_device
+    from fast_monte_carlo.models.heads import load_heads
 
     sp_path = str(reference_dir / "PregameSPPlus2025_1.csv")
     heads = load_heads(reference_dir)
@@ -188,8 +188,8 @@ def test_simulate_slate_props_sharded(reference_dir, tmp_path):
     """shard=True shards each prop sim's trial axis over the 8-device mesh;
     the reduction jit consumes sharded pstats (GSPMD inserts the sums).
     Sharded and unsharded scans agree within MC error."""
-    from fast_monte_carlo_tpu.api import simulate_slate_props
-    from fast_monte_carlo_tpu.models.heads import load_heads
+    from fast_monte_carlo.api import simulate_slate_props
+    from fast_monte_carlo.models.heads import load_heads
 
     heads = load_heads(reference_dir)
     s1_cats = heads.stage1.layout.categories["passer_name"]
@@ -213,8 +213,8 @@ def test_simulate_slate_props_sharded(reference_dir, tmp_path):
 
 
 def test_simulate_slate_summaries_return_summaries(reference_dir):
-    from fast_monte_carlo_tpu.api import simulate_slate_summaries
-    from fast_monte_carlo_tpu.edge import market_odds_from_summary
+    from fast_monte_carlo.api import simulate_slate_summaries
+    from fast_monte_carlo.edge import market_odds_from_summary
 
     sp_path = str(reference_dir / "PregameSPPlus2025_1.csv")
     games = [("Kansas State", "Iowa State"), ("Alabama", "Georgia")]
@@ -250,12 +250,12 @@ def test_simulate_slate_props_mixed_pad_groups(reference_dir, tmp_path):
     scan_props_device at the same fold_in key."""
     import jax
 
-    from fast_monte_carlo_tpu.api import MatchupRunner, simulate_slate_props
-    from fast_monte_carlo_tpu.data import (
+    from fast_monte_carlo.api import MatchupRunner, simulate_slate_props
+    from fast_monte_carlo.data import (
         build_team_context_from_sp_flex, load_sp_flex,
     )
-    from fast_monte_carlo_tpu.edge import scan_props_device
-    from fast_monte_carlo_tpu.models.heads import load_heads
+    from fast_monte_carlo.edge import scan_props_device
+    from fast_monte_carlo.models.heads import load_heads
 
     sp_path = str(reference_dir / "PregameSPPlus2025_1.csv")
     heads = load_heads(reference_dir)

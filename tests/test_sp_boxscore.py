@@ -6,13 +6,13 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from fast_monte_carlo_tpu.boxscore import (
+from fast_monte_carlo.boxscore import (
     format_boxscore, format_team_line, mean_boxscore,
 )
-from fast_monte_carlo_tpu.data import (
+from fast_monte_carlo.data import (
     build_team_context, lookup_sp_historical,
 )
-from fast_monte_carlo_tpu.stats import N_TEAM_STATS, TS
+from fast_monte_carlo.stats import N_TEAM_STATS, TS
 
 
 @pytest.fixture()

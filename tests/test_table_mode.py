@@ -7,19 +7,19 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from fast_monte_carlo_tpu.config import SimConfig
-from fast_monte_carlo_tpu.data import load_sp_flex, build_team_context_from_sp_flex
-from fast_monte_carlo_tpu.matchup import build_direction
-from fast_monte_carlo_tpu.models.heads import load_heads
-from fast_monte_carlo_tpu.models.tables import (
+from fast_monte_carlo.config import SimConfig
+from fast_monte_carlo.data import load_sp_flex, build_team_context_from_sp_flex
+from fast_monte_carlo.matchup import build_direction
+from fast_monte_carlo.models.heads import load_heads
+from fast_monte_carlo.models.tables import (
     build_tables, coarse_profile, slate_profile,
 )
-from fast_monte_carlo_tpu.ops.game import make_exact_heads_eval, simulate_games
-from fast_monte_carlo_tpu.ops.pack import build_packs
-from fast_monte_carlo_tpu.ops.table_lookup import (
+from fast_monte_carlo.ops.game import make_exact_heads_eval, simulate_games
+from fast_monte_carlo.ops.pack import build_packs
+from fast_monte_carlo.ops.table_lookup import (
     build_table_heads, make_table_heads_eval,
 )
-from fast_monte_carlo_tpu.stats import TS
+from fast_monte_carlo.stats import TS
 
 
 @pytest.fixture(scope="module")

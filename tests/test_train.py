@@ -5,10 +5,10 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from fast_monte_carlo_tpu.compat import load_sklearn_artifact
-from fast_monte_carlo_tpu.models.heads import load_heads
-from fast_monte_carlo_tpu.models.sklearn_gbr import forest_from_gbc_pipeline
-from fast_monte_carlo_tpu.train import pipeline as P
+from fast_monte_carlo.compat import load_sklearn_artifact
+from fast_monte_carlo.models.heads import load_heads
+from fast_monte_carlo.models.sklearn_gbr import forest_from_gbc_pipeline
+from fast_monte_carlo.train import pipeline as P
 
 
 @pytest.fixture(scope="module")
@@ -100,7 +100,7 @@ def test_quantile_head_training_and_compile(synth_plays, tmp_path):
     paths = P.train_quantile_heads(synth_plays.head(1500), "run", tmp_path,
                                    n_estimators=40)
     assert len(paths) == 3
-    from fast_monte_carlo_tpu.models import load_gbr_forest
+    from fast_monte_carlo.models import load_gbr_forest
     f = load_gbr_forest(paths[1])
     assert f.n_trees == 40
     x = synth_plays.head(8)
@@ -251,14 +251,14 @@ def test_pipeline_stage2_drives_engine(synth_plays, tmp_path, reference_dir):
     import jax
     import jax.numpy as jnp
 
-    from fast_monte_carlo_tpu.config import SimConfig
-    from fast_monte_carlo_tpu.data import (
+    from fast_monte_carlo.config import SimConfig
+    from fast_monte_carlo.data import (
         build_team_context_from_sp_flex, load_sp_flex,
     )
-    from fast_monte_carlo_tpu.ops.game import make_exact_heads_eval, simulate_games
-    from fast_monte_carlo_tpu.ops.pack import build_packs
-    from fast_monte_carlo_tpu.oracle import OracleMatchup
-    from fast_monte_carlo_tpu.stats import TS
+    from fast_monte_carlo.ops.game import make_exact_heads_eval, simulate_games
+    from fast_monte_carlo.ops.pack import build_packs
+    from fast_monte_carlo.oracle import OracleMatchup
+    from fast_monte_carlo.stats import TS
 
     P.train_stage2(synth_plays, tmp_path)
     trained = load_heads(tmp_path)
@@ -330,14 +330,14 @@ def test_stage2_reconstruction_plausible(tmp_path, reference_dir):
     import jax
     import jax.numpy as jnp
 
-    from fast_monte_carlo_tpu.config import SimConfig
-    from fast_monte_carlo_tpu.data import (
+    from fast_monte_carlo.config import SimConfig
+    from fast_monte_carlo.data import (
         build_team_context_from_sp_flex, load_sp_flex,
     )
-    from fast_monte_carlo_tpu.models import analytic
-    from fast_monte_carlo_tpu.ops.game import make_exact_heads_eval, simulate_games
-    from fast_monte_carlo_tpu.ops.pack import build_packs
-    from fast_monte_carlo_tpu.stats import TS
+    from fast_monte_carlo.models import analytic
+    from fast_monte_carlo.ops.game import make_exact_heads_eval, simulate_games
+    from fast_monte_carlo.ops.pack import build_packs
+    from fast_monte_carlo.stats import TS
 
     cfg = SimConfig()
     sp = load_sp_flex(str(reference_dir / "PregameSPPlus2025_1.csv"))

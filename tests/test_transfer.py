@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from fast_monte_carlo_tpu.utils.transfer import fetch_tree
+from fast_monte_carlo.utils.transfer import fetch_tree
 
 
 def test_fetch_tree_matches_per_leaf():
@@ -48,7 +48,7 @@ def test_fetch_tree_python_scalar_leaf_falls_back():
 def test_fetch_tree_summary_roundtrip():
     """The production payload: a ScoreSummary fetched packed equals the
     per-leaf readback bit for bit."""
-    from fast_monte_carlo_tpu.parallel import summarize_scores
+    from fast_monte_carlo.parallel import summarize_scores
 
     score = jnp.asarray(np.random.default_rng(0).integers(0, 80, (512, 2)),
                         jnp.int32)

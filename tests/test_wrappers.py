@@ -2,9 +2,9 @@
 import numpy as np
 import pytest
 
-from fast_monte_carlo_tpu.models.heads import load_heads
-from fast_monte_carlo_tpu.models.wrappers import PlayPolicy, QuantileYards
-from fast_monte_carlo_tpu.utils import SimMeter, device_memory_stats
+from fast_monte_carlo.models.heads import load_heads
+from fast_monte_carlo.models.wrappers import PlayPolicy, QuantileYards
+from fast_monte_carlo.utils import SimMeter, device_memory_stats
 
 
 @pytest.fixture(scope="module")
@@ -41,7 +41,7 @@ def test_quantile_yards_inverse_cdf(reference_dir):
 def test_pass_outcome_two_stage_composition(reference_dir, heads):
     """Stage-2 booster is missing from the snapshot, so compose with a
     synthetic stage2 via direct construction."""
-    from fast_monte_carlo_tpu.models.wrappers import PassOutcomeTwoStage
+    from fast_monte_carlo.models.wrappers import PassOutcomeTwoStage
     if heads.stage2 is None:
         pytest.skip("no stage2 artifact in snapshot (expected)")
     w = PassOutcomeTwoStage(heads.stage1, heads.stage2, heads.stage2_class_order)
@@ -67,8 +67,8 @@ def test_device_memory_stats_shape():
 
 
 def test_batched_resume(tmp_path, reference_dir):
-    from fast_monte_carlo_tpu.api import simulate_matchup_batched
-    from fast_monte_carlo_tpu.data import build_team_context_from_sp_flex, load_sp_flex
+    from fast_monte_carlo.api import simulate_matchup_batched
+    from fast_monte_carlo.data import build_team_context_from_sp_flex, load_sp_flex
 
     sp = load_sp_flex(str(reference_dir / "PregameSPPlus2025_1.csv"))
     a = build_team_context_from_sp_flex("Kansas State", 2025, 1, sp)
@@ -93,8 +93,8 @@ def test_batched_resume(tmp_path, reference_dir):
 def test_batched_refuses_foreign_key_scheme(tmp_path, reference_dir):
     """A run_dir holding chunks from another (or unmarked, pre-fold_in)
     chunk-key convention must be refused, not silently spliced."""
-    from fast_monte_carlo_tpu.api import simulate_matchup_batched
-    from fast_monte_carlo_tpu.data import build_team_context_from_sp_flex, load_sp_flex
+    from fast_monte_carlo.api import simulate_matchup_batched
+    from fast_monte_carlo.data import build_team_context_from_sp_flex, load_sp_flex
 
     sp = load_sp_flex(str(reference_dir / "PregameSPPlus2025_1.csv"))
     a = build_team_context_from_sp_flex("Kansas State", 2025, 1, sp)
@@ -120,7 +120,7 @@ def test_heads_memo_fingerprint_covers_every_probed_artifact():
     import inspect
     import re
 
-    from fast_monte_carlo_tpu.models import heads as H
+    from fast_monte_carlo.models import heads as H
 
     src = inspect.getsource(H)
     # every literal `d / "name"` probe in the module (loader + helpers);
@@ -133,7 +133,7 @@ def test_heads_memo_fingerprint_covers_every_probed_artifact():
 
 
 def test_heads_memo_is_bounded(monkeypatch, tmp_path):
-    from fast_monte_carlo_tpu.models import heads as H
+    from fast_monte_carlo.models import heads as H
 
     monkeypatch.setattr(H, "_HEADS_MEMO", {})
     monkeypatch.setattr(H, "_HEADS_MEMO_MAX", 3)
